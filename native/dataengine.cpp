@@ -1,6 +1,6 @@
 // Native streaming data engine: synthetic 802.11 frame generation.
 //
-// TPU-native counterpart of the host-side data path.  The reference bakes
+// Native counterpart of the host-side data path.  The reference bakes
 // its one captured frame into the binary (inputs.h) and replays it across
 // MPI frame groups (main_mpi.c:62-93); this framework streams >=1e5 fresh
 // frames per second through the chip, so frame *generation* on the host
@@ -20,8 +20,8 @@
 //   * optionally synthesizes the time-domain view — the exact right-
 //     inverse of block extraction (zero-pad 53→64 shifted bins, inverse
 //     DFT-64, prepend the 16-sample CP; preamble as CP32 + 2 LTS repeats,
-//     WiFi_RX.m:19-29) — so the fused whole-chain Pallas kernel can be fed
-//     natively.
+//     WiFi_RX.m:19-29) — so the time-domain chain (pipeline/sc.py) can
+//     be fed natively.
 //
 // Determinism: frame i (global index frame0+i) depends only on
 // (seed, frame0+i) via a splitmix64-derived stream, so results are

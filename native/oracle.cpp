@@ -3,7 +3,7 @@
 // A from-scratch C++17 re-implementation of the *behavior* of the
 // reference's sequential estimator chain (main.c:66-212 + utils.c kernels),
 // written to the spec in SURVEY.md §2.2/§2.5 — NOT a copy of the reference
-// sources.  It exists so the JAX/TPU paths can be parity-gated against a
+// sources.  It exists so the JAX paths can be parity-gated against a
 // freshly compiled native binary at the same `long double` (x87 80-bit)
 // precision the reference uses, including the reference's documented
 // quirks when `c_parity` is set:

@@ -1,17 +1,15 @@
 #!/usr/bin/env python
 """Accuracy record of the generative raw system across SNR.
 
-The round-4 raw receiver has throughput records (bench_raw_stream.py)
-but no quantified sensitivity curve.  This sweep runs the fully
-in-kernel generative system (kernels/raw_gen_chain.py — channel + AWGN
-+ random timing offset + ±20 kHz CFO per stream) at each SNR and
-records, per point:
+This sweep runs the generative raw system (pipeline/raw.gen_raw_system
+— channel + AWGN + random timing offset + ±20 kHz CFO per stream) at
+each SNR and records, per point:
 
   * detection rate (the `threshold = 4e-3` stage the reference promises,
     WiFi_RX.m:7, characterized instead of hard-coded);
   * timing: fraction inside the [-4,-2] advance band and inside the
     cyclic-prefix margin [-8, 0];
-  * median |CFO estimate − truth| in Hz (Moose, in-kernel);
+  * median |CFO estimate − truth| in Hz (Moose);
   * post-CPE EVM with the production equalizer (equalize_with="h_mmse")
     over DETECTED streams.
 
@@ -29,17 +27,18 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu80211-jax-cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from tpu80211.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
 from tpu80211.cplx import Cplx
 from tpu80211.datasets.loader import load_capture
-from tpu80211.kernels.fused_chain import tx_spectra
-from tpu80211.kernels.raw_gen_chain import gen_raw_system
-from tpu80211.ops.detect import lts_time_symbol
+from tpu80211.ops.detect import detect_packet, lts_time_symbol
+from tpu80211.pipeline.lane import tx_spectra
+from tpu80211.pipeline.raw import gen_raw_system
 
 SNRS = (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0, 30.0, 40.0)
 
@@ -87,17 +86,15 @@ def main():
 
     # ---- false-alarm rate on pure noise vs threshold (the ROC's other
     # axis; complements the sensitivity rows above) ----------------------
-    from tpu80211.kernels.detect_kernel import detect_streams
-
     rng = np.random.default_rng(0)
     nb = 8192
-    noise = (rng.standard_normal((2048, nb))
-             + 1j * rng.standard_normal((2048, nb))) * 0.01
+    noise = (rng.standard_normal((nb, 2048))
+             + 1j * rng.standard_normal((nb, 2048))) * 0.01
     xn = Cplx(jnp.asarray(noise.real, jnp.float32),
               jnp.asarray(noise.imag, jnp.float32))
     fa_rows = []
     for thr in (0.3, 0.4, 0.5, 0.6):
-        res = detect_streams(xn, lts, threshold=thr)
+        res = detect_packet(xn, lts, threshold=thr, stride=16)
         fa = float(np.asarray(res["detected"]).mean())
         fa_rows.append({"threshold": thr, "false_alarm_rate": fa,
                        "streams": nb})
@@ -107,7 +104,9 @@ def main():
         "metric": "generative raw system accuracy vs SNR (detection, "
                   "timing, CFO recovery, post-CPE EVM; cfo_khz=20, "
                   "equalize_with=h_mmse)",
-        "device": str(jax.devices()[0]),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
+        "device_count": len(jax.devices()),
         "rows": rows,
         "false_alarm_on_noise": fa_rows,
     }

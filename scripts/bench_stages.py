@@ -26,10 +26,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu80211-jax-cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from tpu80211.utils.compile_cache import enable_compile_cache
 
-import functools
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -144,7 +143,9 @@ def main():
         rows.append(row)
         print(json.dumps(row))
         prev, prev_spread = dt, spread
-    out = {"device": str(jax.devices()[0]), "batch": batch, "iters": iters,
+    d = jax.devices()
+    out = {"platform": d[0].platform, "device_kind": d[0].device_kind,
+           "device_count": len(d), "batch": batch, "iters": iters,
            "rows": rows}
     import os
     path = pathlib.Path(

@@ -3,13 +3,10 @@
 # (LSF allocation + host-list construction + mpirun -np 15 -TCP -lsf,
 # main_mpi.bash:1-30).
 #
-# On a TPU pod slice, run THIS SAME SCRIPT on every host (e.g. via
-# `gcloud compute tpus tpu-vm ssh --worker=all --command=...`); JAX
-# auto-detects the coordinator from the TPU metadata — no host lists, no
-# slot counts, no communicator arithmetic (main_mpi.c:21-71).
-#
-# On a CPU/GPU cluster, export:
+# Run THIS SAME SCRIPT on every host with, exported per host:
 #   TPU80211_COORD=host0:8476  TPU80211_NPROC=<hosts>  TPU80211_PID=<rank>
+# — no host lists, no slot counts, no communicator arithmetic
+# (main_mpi.c:21-71).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 

@@ -1,5 +1,5 @@
-"""bench.py smoke test — the driver runs `python bench.py` at round end;
-this guards the default path against import/arg regressions."""
+"""bench.py smoke tests: a CPU rehearsal of one row, and the stage
+script, guard the entry points against import/arg regressions."""
 
 import json
 import os
@@ -8,14 +8,13 @@ import sys
 
 
 def test_bench_stages_runs_tiny(tmp_path):
-    # TPU80211_ARTIFACTS_DIR: keep the smoke run from clobbering the
-    # committed on-chip artifacts/stage_costs.json
+    # TPU80211_ARTIFACTS_DIR: keep the smoke run out of the checkout's
+    # artifacts/
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "TPU80211_ARTIFACTS_DIR": str(tmp_path)}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
         [sys.executable, "-c",
-         "import jax; jax.config.update('jax_platforms','cpu');"
          "import sys; sys.argv=['bench_stages.py','64','2'];"
          "import runpy; runpy.run_path('scripts/bench_stages.py',"
          "run_name='__main__')"],
@@ -35,8 +34,7 @@ def test_bench_default_path_runs_tiny():
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(
         [sys.executable, "-c",
-         "import jax; jax.config.update('jax_platforms','cpu');"
-         "import sys; sys.argv=['bench.py','256','2'];"
+         "import sys; sys.argv=['bench.py','256','2','--cpu'];"
          "import bench; bench.main()"],
         capture_output=True, text=True, timeout=400, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -47,3 +45,18 @@ def test_bench_default_path_runs_tiny():
     assert obj["unit"] == "frames/s"
     assert obj["value"] > 0
     assert "vs_baseline" in obj
+    assert obj["platform"] == "cpu" and obj["device_count"] >= 1
+    assert "cpu" in obj["power_limit"]
+
+
+def test_bench_refuses_cpu_without_flag():
+    """Without --cpu and without a GPU, a row fails instead of timing the
+    CPU under a device label."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run(
+        [sys.executable, "bench.py", "256", "2"],
+        capture_output=True, text=True, timeout=400, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert r.returncode != 0
+    assert "needs a GPU" in r.stderr

@@ -58,7 +58,7 @@ def test_complex_chain_vs_native(capture, mode):
 
 
 def test_sc_chain_vs_native_math(capture):
-    """Split-complex f32 TPU pipeline == native chain (MATH mode) within
+    """Split-complex f32 pipeline == native chain (MATH mode) within
     the f32/SNR tolerance — the production-path parity gate."""
     out = sc.rx_chain_freq(
         Cplx.from_complex(capture.tx_preamble_fft),

@@ -50,17 +50,17 @@ def test_generate_accepts_models_and_selectivity_orders():
 
 @pytest.mark.parametrize("model", ["A", "E"])
 def test_gen_chain_accepts_models(capture, model):
-    """The generative kernel path (CPU twin here; same static-arg plumbing
-    as the Pallas kernel) produces consistent statistics per model."""
+    """The generative chain (pipeline/lane.gen_chain) produces consistent
+    statistics per model."""
     from tpu80211.cplx import Cplx
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.gen_chain import fused_gen_chain
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.lane import gen_chain
 
     txs, tpre = tx_spectra(
         Cplx.from_complex(capture.tx_packet),
         Cplx.from_complex(capture.tx_lptot),
     )
-    out = fused_gen_chain(jnp.int32(3), 128, txs, tpre, snr_db=35.0,
+    out = gen_chain(jnp.int32(3), 128, txs, tpre, snr_db=35.0,
                           channel_model=model)
     h = out["h_true"].to_complex()
     assert abs(float(np.mean(np.abs(h) ** 2)) - 1.0) < 0.2

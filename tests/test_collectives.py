@@ -10,10 +10,10 @@ contain exactly the two intended reductions:
   * one all-reduce over the ``blk`` subgroups (XLA's combiner merges the
     six per-estimator psum_avg calls — 2 planes × 6 estimators incl. the
     Wiener interpolator — into a single tuple all-reduce): the 4-block
-    average, the TPU form of the reference's intra-frame group reduction
+    average, the counterpart of the reference's intra-frame group reduction
     (main_mpi.c:467-481);
-  * one all-reduce over the ``dp`` groups: the global MSE metric, the TPU
-    form of the reference's final MPI_Reduce-to-rank-0.
+  * one all-reduce over the ``dp`` groups: the global MSE metric, the
+    counterpart of the reference's final MPI_Reduce-to-rank-0.
 
 Anything else appearing (all-gather, collective-permute, all-to-all,
 reduce-scatter, or extra all-reduces) is a sharding regression.
@@ -73,8 +73,8 @@ def test_dp_path_has_zero_collectives(batch):
 
 
 def test_mesh_device_stream_step(batch):
-    """Multi-chip generative stream (round 3): per-dp-shard in-kernel
-    generation + chain under shard_map, correct statistics, deterministic,
+    """Multi-device generative stream: per-dp-shard generation + chain
+    under shard_map, correct statistics, deterministic,
     and at most the two intended dp all-reduces (packed summary + checksum)
     in the compiled program — the whole streamed system scales as
     chips × single-chip minus one scalar reduction per batch."""

@@ -1,5 +1,5 @@
 """Unit tests for the split-complex Cplx algebra — the load-bearing
-storage format of the TPU path (tpu80211/cplx.py).
+storage format of the production path (tpu80211/cplx.py).
 
 Every operation is checked against numpy complex arithmetic on random
 operands, plus pytree/jit/vmap plumbing.

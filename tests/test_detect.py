@@ -5,6 +5,7 @@ implements."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from tpu80211.cplx import Cplx
 from tpu80211.datasets import synthetic
@@ -149,21 +150,16 @@ def test_extract_and_run_chain(capture):
 
 
 def test_raw_rx_pipeline_matches_prealigned(capture):
-    """pipeline/raw.py: raw streams → detect_and_align → fused chain
-    equals the chain on the pre-aligned frames (CPU: the detect kernel's
-    XLA fallback + gather extraction; the Pallas kernel itself is
-    cross-checked on-chip by test_detect_kernel_matches_xla_on_tpu)."""
-    from tpu80211.kernels.fused_chain import (
-        fused_rx_chain_txconst,
-        tx_spectra,
-    )
+    """pipeline/raw.py: raw streams → detect_and_align → tx-constant
+    chain equals the chain on the pre-aligned frames."""
     from tpu80211.pipeline import raw
+    from tpu80211.pipeline.lane import rx_chain_txconst, tx_spectra
 
     rng = np.random.default_rng(9)
     nb = 4
     frame = np.concatenate([capture.rx_lptot, capture.rx_packet])
-    stream = _noise(rng, (128, N), 1e-5)   # LANES-wide batch (kernel req)
-    offs = rng.integers(50, N - 1400, 128)
+    stream = _noise(rng, (nb, N), 1e-5)
+    offs = rng.integers(50, N - 1400, nb)
     for i, o in enumerate(offs):
         stream[i, o:o + 1360] += frame
     x = Cplx.from_complex(np.ascontiguousarray(stream.T), jnp.float32)
@@ -186,16 +182,13 @@ def test_raw_rx_pipeline_matches_prealigned(capture):
                       for i in range(nb)], axis=1)
     pk_im = np.stack([stream[i, starts[i] + 160:starts[i] + 1360].imag
                       for i in range(nb)], axis=1)
-    # pad to a LANES multiple like raw_rx does internally
-    want = fused_rx_chain_txconst(
+    want = rx_chain_txconst(
         txs, tpre,
-        Cplx(jnp.asarray(np.pad(pk_re, ((0, 0), (0, 128 - nb))), jnp.float32),
-             jnp.asarray(np.pad(pk_im, ((0, 0), (0, 128 - nb))), jnp.float32)),
-        Cplx(jnp.asarray(np.pad(lp_re, ((0, 0), (0, 128 - nb))), jnp.float32),
-             jnp.asarray(np.pad(lp_im, ((0, 0), (0, 128 - nb))), jnp.float32)),
+        Cplx(jnp.asarray(pk_re, jnp.float32), jnp.asarray(pk_im, jnp.float32)),
+        Cplx(jnp.asarray(lp_re, jnp.float32), jnp.asarray(lp_im, jnp.float32)),
     )
-    got = np.asarray(out["h_mmse"].re)[:, :nb]
-    ref_h = np.asarray(want["h_mmse"].re)[:, :nb]
+    got = np.asarray(out["h_mmse"].re)
+    ref_h = np.asarray(want["h_mmse"].re)
     np.testing.assert_allclose(got, ref_h, rtol=1e-4, atol=1e-6)
 
 
@@ -206,12 +199,12 @@ def test_raw_rx_under_shard_map(capture):
     import jax
     from jax.sharding import PartitionSpec as P
 
-    from tpu80211.kernels.fused_chain import tx_spectra
     from tpu80211.parallel import make_mesh
     from tpu80211.pipeline import raw
+    from tpu80211.pipeline.lane import tx_spectra
 
     rng = np.random.default_rng(11)
-    b = 256  # 128 per shard (the kernel's LANES minimum)
+    b = 32  # 16 per shard
     frame = np.concatenate([capture.rx_lptot, capture.rx_packet])
     stream = _noise(rng, (b, N), 1e-4)
     offs = rng.integers(50, N - 1400, b)
@@ -238,7 +231,6 @@ def test_raw_rx_under_shard_map(capture):
     mapped = jax.shard_map(
         lambda xs: raw.raw_rx_txconst(xs, lts, txs, tpre),
         mesh=mesh, in_specs=(lane2,), out_specs=out_specs,
-        check_vma=False,  # interpret-mode pallas vma limitation (CPU)
     )
     got = mapped(x)
     np.testing.assert_array_equal(np.asarray(got["start"]),
@@ -250,119 +242,6 @@ def test_raw_rx_under_shard_map(capture):
                                np.asarray(want["checksum"]), rtol=1e-5)
 
 
-def test_detect_kernel_matches_xla_on_tpu(capture):
-    """Full-size fused detection + barrel-shift alignment vs the XLA
-    path, on the real chip (skips without one)."""
-    import os
-    import subprocess
-    import sys
-    import textwrap
-
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS", "JAX_ENABLE_X64")}
-    script = textwrap.dedent("""
-        import jax, sys
-        import numpy as np
-        if jax.default_backend() in ("cpu",):
-            print("NO_TPU"); sys.exit(0)
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/tpu80211-jax-cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        import jax.numpy as jnp
-        from tpu80211.cplx import Cplx
-        from tpu80211.datasets.loader import load_capture
-        from tpu80211.ops import detect as xd
-        from tpu80211.kernels.detect_kernel import (
-            detect_and_align, detect_streams)
-        cap = load_capture()
-        rng = np.random.default_rng(7)
-        NS, B = 2048, 128
-        frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
-        x = (rng.standard_normal((B, NS))
-             + 1j * rng.standard_normal((B, NS))) * 1e-4
-        offs = rng.integers(40, NS - 1400, B)
-        for i, o in enumerate(offs):
-            x[i, o:o + 1360] += frame
-        xc = Cplx.from_complex(np.ascontiguousarray(x.T), jnp.float32)
-        lts = xd.lts_time_symbol(cap.tx_lptot)
-        lts = Cplx(jnp.asarray(lts.re, jnp.float32),
-                   jnp.asarray(lts.im, jnp.float32))
-        ref = xd.detect_packet(Cplx.from_complex(x, jnp.float32), lts)
-        res = detect_streams(xc, lts)
-        for k in ("detected", "coarse", "start"):
-            assert (np.asarray(res[k]) == np.asarray(ref[k])).all(), k
-        # decimated coarse strides (16/32/64): coarse becomes
-        # stride-granular but detection and the fine (matched-filter)
-        # timing must stay EXACTLY equal to the full-resolution path
-        for stride in (16, 32, 64):
-            resd = detect_streams(xc, lts, decimate=stride)
-            assert (np.asarray(resd["detected"])
-                    == np.asarray(ref["detected"])).all(), stride
-            assert (np.asarray(resd["start"])
-                    == np.asarray(ref["start"])).all(), stride
-        det, lp, pkt = detect_and_align(xc, lts)
-        starts = np.asarray(det["start"])
-        assert (starts == np.asarray(ref["start"])).all()
-        want = np.stack([x[l, starts[l]:starts[l] + 160].real
-                         for l in range(B)], axis=1).astype(np.float32)
-        assert np.abs(np.asarray(lp.re) - want).max() < 1e-7
-        wantp = np.stack([x[l, starts[l] + 160:starts[l] + 1360].imag
-                          for l in range(B)], axis=1).astype(np.float32)
-        assert np.abs(np.asarray(pkt.im) - wantp).max() < 1e-7
-        # bf16 streams take the packed-int32 barrel shifter — the
-        # extracted planes must be the bf16-rounded exact slices
-        xb = Cplx(jnp.asarray(xc.re, jnp.bfloat16),
-                  jnp.asarray(xc.im, jnp.bfloat16))
-        detb, lpb, pktb = detect_and_align(xb, lts)
-        sb = np.asarray(detb["start"])
-        xb_np = np.asarray(xb.re, dtype=np.float32)
-        wantb = np.stack([xb_np[sb[l]:sb[l] + 160, l]
-                          for l in range(B)], axis=1)
-        assert np.array_equal(
-            np.asarray(lpb.re, dtype=np.float32), wantb)
-        xb_np_i = np.asarray(xb.im, dtype=np.float32)
-        wantbp = np.stack([xb_np_i[sb[l] + 160:sb[l] + 1360, l]
-                           for l in range(B)], axis=1)
-        assert np.array_equal(
-            np.asarray(pktb.im, dtype=np.float32), wantbp)
-        # the fully-fused one-kernel receiver == the staged pipeline
-        from tpu80211.kernels.fused_chain import tx_spectra
-        from tpu80211.kernels.raw_chain import raw_rx_txconst_fused
-        from tpu80211.pipeline.raw import raw_rx_txconst
-        txs, tpre = tx_spectra(
-            Cplx.from_complex(cap.tx_packet, jnp.float32),
-            Cplx.from_complex(cap.tx_lptot, jnp.float32))
-        a = raw_rx_txconst(xc, lts, txs, tpre)
-        b2 = raw_rx_txconst_fused(xc, lts, txs, tpre)
-        assert (np.asarray(a["start"]) == np.asarray(b2["start"])).all()
-        for k in ("h_mmse", "h_wiener", "eq"):
-            assert np.array_equal(np.asarray(a[k].re),
-                                  np.asarray(b2[k].re)), k
-        # the sync (CFO/CPE) kernel path must COMPILE and run on the
-        # real chip — it was a latent on-chip failure for two rounds
-        # (atan2/f32-iota have no Mosaic lowering) because only
-        # interpret mode ever traced it
-        from tpu80211.kernels.fused_chain import fused_rx_chain_txconst
-        lp2, pkt2 = a["eq"], None  # noqa: F841 (clarity only)
-        det2, lpx, pktx = __import__(
-            "tpu80211.kernels.detect_kernel", fromlist=["detect_and_align"]
-        ).detect_and_align(xc, lts)
-        outs = fused_rx_chain_txconst(txs, tpre, pktx, lpx, sync=True)
-        assert np.isfinite(np.asarray(outs["cfo"])).all()
-        assert np.isfinite(np.asarray(outs["eq"].re)).all()
-        print("TPU_OK")
-    """)
-    import pytest
-
-    r = subprocess.run([sys.executable, "-c", script], env=env,
-                       capture_output=True, text=True, timeout=1200)
-    assert r.returncode == 0, r.stderr[-2000:]
-    if "NO_TPU" in r.stdout:
-        pytest.skip("no TPU attached — CPU fallback covered by "
-                    "test_raw_rx_pipeline_matches_prealigned")
-    assert "TPU_OK" in r.stdout, r.stdout
-
-
 def test_metric_bounded_by_one(capture):
     """Cauchy-Schwarz: the both-window-normalized metric never exceeds 1
     (the single-window form spiked to 1.5 in data regions — fixed)."""
@@ -372,3 +251,91 @@ def test_metric_bounded_by_one(capture):
     stream[:, 100:1460] += frame
     m = detect.autocorr_metric(Cplx.from_complex(stream, jnp.float64))
     assert float(np.max(np.asarray(m))) <= 1.0 + 1e-9
+
+
+def _capture_streams(capture, b, amp, seed):
+    """Lane-major (N, b) streams carrying the capture at random offsets."""
+    rng = np.random.default_rng(seed)
+    frame = np.concatenate([capture.rx_lptot, capture.rx_packet])
+    stream = _noise(rng, (b, N), amp)
+    offs = rng.integers(40, N - 1400, b)
+    for i, o in enumerate(offs):
+        stream[i, o:o + 1360] += frame
+    return stream, offs
+
+
+@pytest.mark.parametrize("stride", [16, 32, 64])
+def test_decimated_detection_keeps_fine_timing(capture, stride):
+    """The stride-decimated coarse metric is M at every stride-th offset
+    exactly, and detection + fine timing equal the full-resolution path;
+    only ``coarse`` becomes stride-granular."""
+    stream, _ = _capture_streams(capture, 12, 1e-4, 5)
+    x = Cplx.from_complex(stream, jnp.float32)
+    ref = detect.lts_time_symbol(capture.tx_lptot)
+    full = detect.detect_packet(x, ref)
+    dec = detect.detect_packet(x, ref, stride=stride)
+    np.testing.assert_array_equal(np.asarray(dec["detected"]),
+                                  np.asarray(full["detected"]))
+    np.testing.assert_array_equal(np.asarray(dec["start"]),
+                                  np.asarray(full["start"]))
+    assert (np.asarray(dec["coarse"]) % stride == 0).all()
+    # metric identity at f64: the cumsum window sums of the f32 path
+    # lose relative precision in the noise floor
+    x64 = Cplx.from_complex(stream, jnp.float64)
+    m_full = np.asarray(detect.autocorr_metric(x64))
+    m_dec = np.asarray(detect.autocorr_metric(x64, stride))
+    np.testing.assert_allclose(
+        m_dec, m_full[:, ::stride][:, :m_dec.shape[-1]], rtol=1e-9,
+        atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_detect_and_align_extracts_exact_slices(capture, dtype):
+    """Lane-major detection + gather alignment returns the stream's own
+    samples at the detected starts, in the storage dtype."""
+    stream, offs = _capture_streams(capture, 8, 1e-4, 7)
+    xt = np.ascontiguousarray(stream.T)
+    x = Cplx(jnp.asarray(xt.real, dtype), jnp.asarray(xt.imag, dtype))
+    lts = detect.lts_time_symbol(capture.tx_lptot)
+    det, lp, pkt = detect.detect_and_align(x, lts, stride=16)
+    assert np.asarray(det["detected"]).all()
+    s = np.asarray(det["start"])
+    assert ((s - offs >= -4) & (s - offs <= -2)).all()
+    assert lp.re.dtype == dtype and pkt.im.dtype == dtype
+    xr = np.asarray(x.re, np.float32)
+    xi = np.asarray(x.im, np.float32)
+    want_lp = np.stack([xr[s[l]:s[l] + 160, l] for l in range(8)], axis=1)
+    want_pk = np.stack([xi[s[l] + 160:s[l] + 1360, l] for l in range(8)],
+                       axis=1)
+    np.testing.assert_array_equal(np.asarray(lp.re, np.float32), want_lp)
+    np.testing.assert_array_equal(np.asarray(pkt.im, np.float32), want_pk)
+
+
+def test_place_streams_matches_roll():
+    """place_streams moves each stream's frame down by its offset
+    (circularly) and adds the noise field."""
+    rng = np.random.default_rng(3)
+    ns, b = 256, 5
+    sig = rng.standard_normal((ns, b)) + 1j * rng.standard_normal((ns, b))
+    noise = rng.standard_normal((ns, b)) + 1j * rng.standard_normal((ns, b))
+    offs = np.array([0, 1, 37, 128, 255])
+    got = detect.place_streams(Cplx.from_complex(sig, jnp.float64),
+                               Cplx.from_complex(noise, jnp.float64),
+                               jnp.asarray(offs)).to_complex()
+    want = np.stack([np.roll(sig[:, l], offs[l]) for l in range(b)],
+                    axis=1) + noise
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("ns", [1360, 1400])
+def test_raw_generator_rejects_streams_without_room(capture, ns):
+    """The raw-stream generator refuses an ``ns`` that leaves no offset
+    range for the frame (ns must exceed 1360 + the 40-sample minimum)."""
+    from tpu80211.datasets import synthetic_sc
+    from tpu80211.pipeline.lane import tx_spectra
+
+    txs, tpre = tx_spectra(Cplx.from_complex(capture.tx_packet, jnp.float32),
+                           Cplx.from_complex(capture.tx_lptot, jnp.float32))
+    with pytest.raises(ValueError, match="no room"):
+        synthetic_sc.generate_raw_lane_major(jax.random.PRNGKey(0), 4, txs,
+                                             tpre, ns=ns)

@@ -1,218 +1,121 @@
-"""Pallas kernel tests (interpret mode on the CPU backend).
+"""Dense MMSE solve tests (ops/linalg.py).
 
-The lane-batched Gauss solve must agree with jnp.linalg.solve and, through
-the dense_pallas MMSE solver, with the Sherman-Morrison closed form.
+The batched Cholesky solve must agree with numpy.linalg.solve and,
+through the dense MMSE solver, with the Sherman-Morrison closed form.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpu80211 import constants as C
 from tpu80211.cplx import Cplx
-from tpu80211.kernels.mmse_solve import fused_rank1_solve, solve_batched_pallas
+from tpu80211.ops.linalg import hpd_solve, rank1_solve
 
 
 def _rand_u(rng, shape):
     return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
 
 
+def _rank1_want(u, rx, ow2):
+    a = ow2 * np.eye(u.shape[-1]) + np.outer(u, np.conj(u))
+    return np.linalg.solve(a, rx)
+
+
 def test_fused_rank1_solve_matches_direct():
     rng = np.random.default_rng(0)
-    b = 7  # deliberately not a multiple of LANES — exercises padding
-    u = _rand_u(rng, (b, C.N_SC))
-    rx = _rand_u(rng, (b, C.N_SC))
-    ow2 = np.full((b,), 0.37)
-
-    got = fused_rank1_solve(
-        Cplx.from_complex(u), Cplx.from_complex(rx), jnp.asarray(ow2, jnp.float32)
-    ).to_complex()
-
-    for i in range(b):
-        a = ow2[i] * np.eye(C.N_SC) + np.outer(u[i], np.conj(u[i]))
-        want = np.linalg.solve(a, rx[i])
-        rel = np.abs(got[i] - want).max() / np.abs(want).max()
-        assert rel < 1e-4, (i, rel)
-
-
-def test_fused_rank1_solve_cholesky():
-    """method='chol' (lane-batched LLᴴ — the BASELINE-named solve) matches
-    the direct solve and the Gauss path."""
-    rng = np.random.default_rng(3)
     b = 7
     u = _rand_u(rng, (b, C.N_SC))
     rx = _rand_u(rng, (b, C.N_SC))
     ow2 = np.full((b,), 0.37)
 
-    got = fused_rank1_solve(
-        Cplx.from_complex(u), Cplx.from_complex(rx),
-        jnp.asarray(ow2, jnp.float32), method="chol",
+    got = rank1_solve(
+        Cplx.from_complex(u), Cplx.from_complex(rx), jnp.asarray(ow2, jnp.float32)
     ).to_complex()
 
     for i in range(b):
-        a = ow2[i] * np.eye(C.N_SC) + np.outer(u[i], np.conj(u[i]))
-        want = np.linalg.solve(a, rx[i])
+        want = _rank1_want(u[i], rx[i], ow2[i])
         rel = np.abs(got[i] - want).max() / np.abs(want).max()
         assert rel < 1e-4, (i, rel)
 
 
+def test_fused_rank1_solve_cholesky():
+    """Leading batch dims and a per-system σ² broadcast through the
+    Cholesky solve."""
+    rng = np.random.default_rng(3)
+    u = _rand_u(rng, (3, 4, C.N_SC))
+    rx = _rand_u(rng, (3, 4, C.N_SC))
+    ow2 = rng.uniform(0.1, 2.0, (3, 4))
+
+    got = rank1_solve(
+        Cplx.from_complex(u), Cplx.from_complex(rx),
+        jnp.asarray(ow2, jnp.float32),
+    ).to_complex()
+    assert got.shape == (3, 4, C.N_SC)
+    for i in range(3):
+        for j in range(4):
+            want = _rank1_want(u[i, j], rx[i, j], ow2[i, j])
+            rel = np.abs(got[i, j] - want).max() / np.abs(want).max()
+            assert rel < 1e-4, (i, j, rel)
+
+
 def test_solve_batched_pallas_cholesky():
+    """hpd_solve on complex64 Hermitian-PD systems vs numpy."""
     rng = np.random.default_rng(4)
     b = 5
     u = _rand_u(rng, (b, C.N_SC))
     rx = _rand_u(rng, (b, C.N_SC, 1))
     a = 0.5 * np.eye(C.N_SC) + u[:, :, None] * np.conj(u[:, None, :])
 
-    got = np.asarray(
-        solve_batched_pallas(
-            jnp.asarray(a, jnp.complex64), jnp.asarray(rx, jnp.complex64),
-            method="chol",
-        )
-    )
+    got = np.asarray(hpd_solve(jnp.asarray(a, jnp.complex64),
+                               jnp.asarray(rx, jnp.complex64)))
     want = np.linalg.solve(a, rx)
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 1e-4, rel
 
 
 def test_solve_batched_pallas_matches_xla():
+    """hpd_solve with several right-hand sides == jnp.linalg.solve (f64)."""
     rng = np.random.default_rng(1)
     b = 5
-    u = _rand_u(rng, (b, C.N_SC))
-    rx = _rand_u(rng, (b, C.N_SC, 1))
-    a = 0.5 * np.eye(C.N_SC) + u[:, :, None] * np.conj(u[:, None, :])
+    w = _rand_u(rng, (b, C.N_SC, C.N_SC)) / np.sqrt(C.N_SC)
+    a = 0.3 * np.eye(C.N_SC) + w @ np.conj(np.swapaxes(w, -1, -2))
+    rx = _rand_u(rng, (b, C.N_SC, 3))
 
-    got = np.asarray(
-        solve_batched_pallas(jnp.asarray(a, jnp.complex64), jnp.asarray(rx, jnp.complex64))
-    )
-    want = np.linalg.solve(a, rx)
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 1e-4, rel
-
-
-def _lane_batched_hpd(rng, d, lanes, sigma2=0.3):
-    """Per-lane Hermitian-PD systems in the kernel's lane-batched padded
-    layout: returns (ar, ai, br, bi) planes of shape (n, n, lanes) /
-    (n, lanes), plus the numpy (lanes, n_sc, n_sc) systems and rhs."""
-    import jax.numpy as jnp
-
-    w = _rand_u(rng, (lanes, d.n_sc, d.n_sc)) / np.sqrt(d.n_sc)
-    a = sigma2 * np.eye(d.n_sc) + w @ np.conj(np.swapaxes(w, -1, -2))
-    b = _rand_u(rng, (lanes, d.n_sc))
-    apad = np.zeros((lanes, d.n, d.n), complex)
-    apad[:, : d.n_sc, : d.n_sc] = a
-    # diagonal pad block keeps the padded system nonsingular (the
-    # production callers pad the same way)
-    for j in range(d.n_sc, d.n):
-        apad[:, j, j] = 1.0
-    bpad = np.zeros((lanes, d.n), complex)
-    bpad[:, : d.n_sc] = b
-    ar = jnp.asarray(np.transpose(apad.real, (1, 2, 0)), jnp.float64)
-    ai = jnp.asarray(np.transpose(apad.imag, (1, 2, 0)), jnp.float64)
-    br = jnp.asarray(bpad.real.T, jnp.float64)
-    bi = jnp.asarray(bpad.imag.T, jnp.float64)
-    return ar, ai, br, bi, a, b
-
-
-@pytest.mark.parametrize("n,k,n_sc", [(16, 4, 11), (16, 4, 12), (24, 8, 19)])
-def test_panel_chol_small_dims_vs_numpy(n, k, n_sc):
-    """The statically-unrolled panel-blocked Cholesky (_chol_factor_fwd +
-    _chol_back — the exact code the production Pallas kernel runs) solves
-    correctly at reduced static sizes that compile in seconds on CPU
-    (VERDICT round-3 weak#1: the panel path had zero automated coverage).
-    Covers the shrinking trailing block, the pure-pad column skip, and
-    the panel/pad boundary cases."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    from tpu80211.kernels.mmse_solve import PanelDims, _chol_solve
-
-    d = PanelDims(n, k, n_sc)
-    rng = np.random.default_rng(11)
-    ar, ai, br, bi, a, b = _lane_batched_hpd(rng, d, lanes=8)
-    xr, xi = jax.jit(functools.partial(_chol_solve, d=d))(ar, ai, br, bi)
-    got = (np.asarray(xr) + 1j * np.asarray(xi)).T[:, :n_sc]
-    want = np.linalg.solve(a, b[..., None])[..., 0]
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 1e-10, rel
-    # pure-pad rows decouple: x there must be exactly 0
-    assert np.abs(np.asarray(xr).T[:, n_sc:]).max() == 0.0
-
-
-@pytest.mark.parametrize("n,k,n_sc", [(16, 4, 11), (24, 8, 19)])
-def test_panel_lu_small_dims_vs_numpy(n, k, n_sc):
-    """Same structural check for the panel-blocked LU path (_panel_lu +
-    _back_substitute)."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    from tpu80211.kernels.mmse_solve import PanelDims, _gauss_solve
-
-    d = PanelDims(n, k, n_sc)
-    rng = np.random.default_rng(12)
-    ar, ai, br, bi, a, b = _lane_batched_hpd(rng, d, lanes=8)
-    xr, xi = jax.jit(functools.partial(_gauss_solve, d=d))(ar, ai, br, bi)
-    got = (np.asarray(xr) + 1j * np.asarray(xi)).T[:, :n_sc]
-    want = np.linalg.solve(a, b[..., None])[..., 0]
+    got = np.asarray(hpd_solve(jnp.asarray(a), jnp.asarray(rx)))
+    want = np.asarray(jnp.linalg.solve(jnp.asarray(a), jnp.asarray(rx)))
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 1e-10, rel
 
 
-def test_panel_vs_looped_on_tpu():
-    """Full-size panel-blocked Pallas kernels (chol + gauss) vs the
-    looped CPU twins, on the real chip.  Skips when no TPU is attached
-    (the suite pins CPU; this test re-enables the default backend in a
-    fresh subprocess)."""
-    import os
-    import subprocess
-    import sys
-    import textwrap
-
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS", "JAX_ENABLE_X64")}
-    script = textwrap.dedent("""
-        import jax, sys
-        import numpy as np
-        if jax.default_backend() in ("cpu",):
-            print("NO_TPU"); sys.exit(0)
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/tpu80211-jax-cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        import jax.numpy as jnp
-        from tpu80211.cplx import Cplx
-        from tpu80211.kernels.mmse_solve import LANES, fused_rank1_solve
-        rng = np.random.default_rng(0)
-        b = LANES
-        u = rng.standard_normal((b, 53)) + 1j * rng.standard_normal((b, 53))
-        rx = rng.standard_normal((b, 53)) + 1j * rng.standard_normal((b, 53))
-        ow2 = np.full((b,), 0.37, np.float32)
-        for method in ("chol", "gauss"):
-            got = np.asarray(fused_rank1_solve(
-                Cplx.from_complex(u), Cplx.from_complex(rx),
-                jnp.asarray(ow2), method=method).to_complex())
-            for i in range(0, b, 13):
-                a = ow2[i] * np.eye(53) + np.outer(u[i], np.conj(u[i]))
-                want = np.linalg.solve(a, rx[i])
-                rel = float(np.abs(got[i] - want).max()
-                            / np.abs(want).max())
-                assert rel < 5e-5, (method, i, rel)
-        print("TPU_OK")
-    """)
-    r = subprocess.run([sys.executable, "-c", script], env=env,
-                       capture_output=True, text=True, timeout=1200)
-    assert r.returncode == 0, r.stderr[-2000:]
-    if "NO_TPU" in r.stdout:
-        pytest.skip("no TPU attached — panel kernels checked on CPU at "
-                    "reduced dims instead")
-    assert "TPU_OK" in r.stdout, r.stdout
+@pytest.mark.parametrize("batch", [1, 130, 257])
+@pytest.mark.parametrize("entry", ["rank1", "hpd"])
+def test_dense_solve_vs_numpy(entry, batch):
+    """The kept dense solve against numpy.linalg.solve at f32, for batch
+    sizes on both sides of a 128 multiple, at the accuracy gate the
+    benchmark applies (rel < 5e-5, σ² = 0.37)."""
+    rng = np.random.default_rng(batch)
+    u = _rand_u(rng, (batch, C.N_SC))
+    rx = _rand_u(rng, (batch, C.N_SC))
+    ow2 = np.full((batch,), 0.37)
+    if entry == "rank1":
+        got = rank1_solve(Cplx.from_complex(u), Cplx.from_complex(rx),
+                          jnp.asarray(ow2, jnp.float32)).to_complex()
+    else:
+        a = ow2[:, None, None] * np.eye(C.N_SC) + (
+            u[:, :, None] * np.conj(u[:, None, :]))
+        got = np.asarray(hpd_solve(jnp.asarray(a, jnp.complex64),
+                                   jnp.asarray(rx[..., None], jnp.complex64)
+                                   ))[..., 0]
+    for i in range(0, batch, max(1, batch // 9)):
+        want = _rank1_want(u[i], rx[i], ow2[i])
+        rel = float(np.abs(got[i] - want).max() / np.abs(want).max())
+        assert rel < 5e-5, (i, rel)
 
 
 def test_dense_pallas_mmse_solver():
-    """models.ps_mmse(solver='dense_pallas') == solver='sm' on the capture."""
+    """models.ps_mmse(solver='dense') at complex64 == solver='sm' on the
+    capture (the dense Cholesky path at f32 precision)."""
     from tpu80211.datasets.loader import load_capture
     from tpu80211.models import lt_ls, ps_mmse
 
@@ -228,7 +131,7 @@ def test_dense_pallas_mmse_solver():
         h_lt,
     )
     a = np.asarray(ps_mmse(*args, solver="sm"))
-    b = np.asarray(ps_mmse(*args, solver="dense_pallas"))
+    b = np.asarray(ps_mmse(*args, solver="dense"))
     # σ² ≈ 1e-7 makes the dense f32 solve ill-conditioned; the rank-1 sm
     # form is exact — compare at the f32-conditioning tolerance
     rel = np.abs(a - b).max() / np.abs(a).max()
@@ -236,8 +139,8 @@ def test_dense_pallas_mmse_solver():
 
 
 def test_sc_ps_mmse_dense_matches_sm(capture):
-    """sc.ps_mmse_dense (fused Pallas) == sc.ps_mmse_sm on the capture at
-    a relaxed σ²-conditioning tolerance."""
+    """sc.ps_mmse_dense (dense build + Cholesky) == sc.ps_mmse_sm on the
+    capture at a relaxed σ²-conditioning tolerance."""
     from tpu80211.pipeline import sc
 
     txb = Cplx.from_complex(capture.tx_symb)

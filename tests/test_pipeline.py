@@ -1,4 +1,4 @@
-"""Full-chain tests: split-complex TPU path == complex path == oracle.
+"""Full-chain tests: split-complex path == complex path == oracle.
 
 Covers the pipeline layer the reference only has in MATLAB
 (WiFi_RX.m → blocks_extraction → estimators → Equalization), on both the

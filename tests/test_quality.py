@@ -98,16 +98,16 @@ def test_wiener_channel_conditioned_prior():
         assert nm["matched"] < nm["cubic"] - 1.0, (cm, nm)
         assert nm["matched"] < nm["sinc"] - 1.0, (cm, nm)
 
-    # the generative CPU twin consumes the conditioned matrix end to end
+    # the generative chain consumes the conditioned matrix end to end
     from tpu80211.cplx import Cplx
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.gen_chain import fused_gen_chain
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.lane import gen_chain
     from tpu80211.datasets.loader import load_capture
 
     cap = load_capture()
     txs, tpre = tx_spectra(Cplx.from_complex(cap.tx_packet),
                            Cplx.from_complex(cap.tx_lptot))
-    out_e = fused_gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0,
+    out_e = gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0,
                             channel_model="E")
     h = out_e["h_true"]
     d_wie = float(np.sum((out_e["h_wiener"] - h).abs2()))

@@ -3,6 +3,7 @@
 import json
 
 import numpy as np
+import pytest
 
 from tpu80211 import constants as C
 from tpu80211.pipeline import stream
@@ -36,7 +37,7 @@ def test_stream_resume_skips_done(tmp_path):
 
 
 def test_device_stream_runs_persists_resumes(tmp_path):
-    """Device-resident stream (on-TPU generation + fused chain): summaries
+    """Device-resident stream (on-device generation + chain): summaries
     + sampled estimates persisted, resumable, channel actually recovered."""
     out_dir = tmp_path / "dstream"
     res = stream.run_stream_device(2, 128, out_dir=str(out_dir), sample=8,
@@ -84,8 +85,8 @@ def test_device_stream_resume_is_bit_deterministic(tmp_path):
 
 
 def test_raw_stream_mode(tmp_path):
-    """gen='raw': device-synthesized raw sample streams → the one-kernel
-    raw receiver; detection/timing/channel-quality summaries are sane and
+    """gen='raw': device-synthesized raw sample streams → the raw
+    receiver; detection/timing/channel-quality summaries are sane and
     the steps chain deterministically."""
     import jax.numpy as jnp
 
@@ -114,8 +115,8 @@ def test_raw_equalize_with_mmse_quality():
 
     from tpu80211.cplx import Cplx
     from tpu80211.datasets.loader import load_capture
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.raw_gen_chain import gen_raw_system
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.raw import gen_raw_system
     from tpu80211.ops.detect import lts_time_symbol
 
     cap = load_capture()
@@ -140,15 +141,13 @@ def test_raw_equalize_with_mmse_quality():
 
 def test_gen_raw_cfo_impairment_and_recovery():
     """cfo_khz: per-stream carrier offsets up to ±40 kHz are synthesized
-    and recovered by the in-kernel Moose CFO + pilot CPE stages (CPU
-    fallback; the Pallas kernel is validated on-chip the same way —
-    PERF.md 'Generative raw stream')."""
+    and recovered by the chain's Moose CFO + pilot CPE stages."""
     import jax.numpy as jnp
 
     from tpu80211.cplx import Cplx
     from tpu80211.datasets.loader import load_capture
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.raw_gen_chain import gen_raw_system
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.raw import gen_raw_system
     from tpu80211.ops.detect import lts_time_symbol
 
     cap = load_capture()
@@ -173,13 +172,13 @@ def test_gen_raw_cfo_impairment_and_recovery():
 
 
 def test_kernel_raw_stream_mode():
-    """gen='kernel_raw': the fully in-kernel generative raw system (CPU
-    fallback composes the XLA generator + staged receiver) — summaries
-    sane, steps deterministic."""
+    """gen='raw' with f32 sample storage: the generative raw system
+    (raw-stream generator + receiver, pipeline/raw.gen_raw_system)
+    behind the stream step — summaries sane, steps deterministic."""
     import jax.numpy as jnp
 
-    step, s0 = stream.make_device_stream_step(128, snr_db=30.0,
-                                              gen="kernel_raw")
+    step, s0 = stream.make_device_stream_step(128, snr_db=30.0, gen="raw",
+                                              dtype=jnp.float32)
     summary, sample_h, s1 = step(0, s0)
     assert float(summary["detect_rate"]) == 1.0
     assert float(summary["h_mmse_mag_nmse"]) < 0.1
@@ -191,7 +190,7 @@ def test_kernel_raw_stream_mode():
 
 
 def test_kernel_raw_stream_mesh_mode():
-    """gen='kernel_raw' with a dp mesh: per-shard generative raw system,
+    """gen='raw' with a dp mesh: per-shard generative raw system,
     summaries combined by one psum — runs on the virtual CPU mesh."""
     import jax
     import jax.numpy as jnp
@@ -200,10 +199,11 @@ def test_kernel_raw_stream_mesh_mode():
 
     mesh = make_mesh(dp=2, blk=1, devices=jax.devices()[:2])
     step, s0 = stream.make_device_stream_step(256, snr_db=30.0,
-                                              gen="kernel_raw", mesh=mesh)
+                                              gen="raw", mesh=mesh)
     summary, sample_h, s1 = step(jnp.int32(0), s0)
     assert float(summary["detect_rate"]) == 1.0
     assert np.isfinite(float(summary["evm_rms"]))
+    assert float(summary["h_mmse_mag_nmse"]) < 0.1
     assert sample_h.re.shape == (53, 256)
 
 
@@ -225,21 +225,19 @@ def test_device_stream_steps_are_chained():
 
 
 def test_gen_chain_contract(capture):
-    """fused_gen_chain (CPU fallback twin): output contract, estimator
-    statistics at SNR 35, σ̂² unbiasedness, determinism, seed
-    sensitivity.  The Pallas kernel itself is validated on-chip with the
-    same checks (PERF.md 'Generative kernel')."""
+    """gen_chain: output contract, estimator statistics at SNR 35, σ̂²
+    unbiasedness, determinism, seed sensitivity."""
     import jax.numpy as jnp
 
     from tpu80211.cplx import Cplx
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.gen_chain import fused_gen_chain
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.lane import gen_chain
 
     txs, tpre = tx_spectra(
         Cplx.from_complex(capture.tx_packet),
         Cplx.from_complex(capture.tx_lptot),
     )
-    out = fused_gen_chain(jnp.int32(7), 256, txs, tpre, snr_db=35.0)
+    out = gen_chain(jnp.int32(7), 256, txs, tpre, snr_db=35.0)
     h = out["h_true"].to_complex()
     assert out["eq"].shape == (C.N_BLOCKS, C.N_SC, 256)
     for name, bound_db in (("h_lt", -12.0), ("h_mmse", -12.0),
@@ -251,30 +249,29 @@ def test_gen_chain_contract(capture):
     ow2 = float(np.mean(np.asarray(out["ow2"])))
     target = 10 ** (-3.5) / 64
     assert abs(ow2 - target) / target < 0.2
-    out2 = fused_gen_chain(jnp.int32(7), 256, txs, tpre, snr_db=35.0)
+    out2 = gen_chain(jnp.int32(7), 256, txs, tpre, snr_db=35.0)
     np.testing.assert_array_equal(np.asarray(out["h_mmse"].re),
                                   np.asarray(out2["h_mmse"].re))
-    out3 = fused_gen_chain(jnp.int32(8), 256, txs, tpre, snr_db=35.0)
+    out3 = gen_chain(jnp.int32(8), 256, txs, tpre, snr_db=35.0)
     assert not np.array_equal(np.asarray(out["h_mmse"].re),
                               np.asarray(out3["h_mmse"].re))
 
 
 def test_gen_chain_stream_sums_match_full(capture):
-    """stream_sums=True: the in-kernel-accumulated summary sums equal the
-    sums computed from the full-output run at the same seed (CPU twin;
-    the Pallas kernel is cross-checked the same way on-chip)."""
+    """stream_sums=True: the per-lane summary sums equal the sums
+    computed from the full-output run at the same seed."""
     import jax.numpy as jnp
 
     from tpu80211.cplx import Cplx
-    from tpu80211.kernels.fused_chain import tx_spectra
-    from tpu80211.kernels.gen_chain import _OUT_NAMES, fused_gen_chain
+    from tpu80211.pipeline.lane import tx_spectra
+    from tpu80211.pipeline.lane import OUT_NAMES as _OUT_NAMES, gen_chain
 
     txs, tpre = tx_spectra(
         Cplx.from_complex(capture.tx_packet),
         Cplx.from_complex(capture.tx_lptot),
     )
-    full = fused_gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0)
-    st = fused_gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0,
+    full = gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0)
+    st = gen_chain(jnp.int32(5), 256, txs, tpre, snr_db=30.0,
                          stream_sums=True)
     assert st["sums"].shape == (8, 128)
     got = np.asarray(st["sums"]).sum(axis=-1)
@@ -310,12 +307,28 @@ def test_plots(tmp_path, capture):
 def test_timing_report():
     from tpu80211.utils.timing import Report, roofline, rx_chain_cost
 
-    r = Report(meta={"chip": "v5e"})
+    kind = "NVIDIA H100 80GB HBM3"
+    r = Report(meta={"device_kind": kind})
     cost = rx_chain_cost(1024)
-    r.add("rx_chain", **roofline(cost["flops"], cost["bytes"], "v5e"))
+    r.add("rx_chain", **roofline(cost["flops"], cost["bytes"], kind))
     obj = json.loads(r.json())
     assert obj["rx_chain"]["bound"] in ("compute", "memory")
     assert obj["rx_chain"]["t_light_s"] > 0
+
+
+def test_peak_table_lookup():
+    """The peak table is keyed by device_kind; the H100 row carries the
+    data-sheet figures, and an unknown device raises instead of falling
+    back to a default."""
+    from tpu80211.utils.timing import device_peaks, roofline
+
+    p = device_peaks("NVIDIA H100 80GB HBM3")
+    assert p["tflops"]["bf16"] == 989.0 and p["hbm_gb_s"] == 3350.0
+    r = roofline(0.0, 3350e9, "NVIDIA H100 80GB HBM3")
+    assert r["bound"] == "memory" and abs(r["t_light_s"] - 1.0) < 1e-12
+    for kind in ("cpu", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB"):
+        with pytest.raises(KeyError):
+            device_peaks(kind)
 
 
 def test_checks_assert_finite():
@@ -368,12 +381,12 @@ def test_main_module_entrypoint():
     )
     assert r.returncode == 0, r.stderr
     out = r.stdout.lower()
-    assert "device" in out or "tpu" in out or "cpu" in out, r.stdout
+    assert "device" in out or "cpu" in out, r.stdout
 
 
 def test_cli_raw_subcommand():
     """python -m tpu80211 raw: the raw-receiver demo detects every
-    embedded frame (CPU fallback path)."""
+    embedded frame."""
     import subprocess
     import sys
 
@@ -398,3 +411,21 @@ def test_init_distributed_single_process_noop():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         multihost.init_distributed()  # backend already up from conftest
+
+
+@pytest.mark.parametrize("env_dir", [None, "/elsewhere/cache"])
+def test_compile_cache_path_rule(env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used as-is and nothing is
+    set in code; otherwise the cache sits at a fixed path in the
+    checkout."""
+    import pathlib
+
+    from tpu80211.utils import compile_cache
+
+    environ = {} if env_dir is None else {compile_cache.ENV: env_dir}
+    path, set_in_code = compile_cache.cache_dir(environ)
+    if env_dir is None:
+        root = pathlib.Path(__file__).resolve().parents[1]
+        assert path == str(root / ".jax_cache") and set_in_code
+    else:
+        assert path == env_dir and not set_in_code

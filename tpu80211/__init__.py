@@ -1,16 +1,16 @@
-"""tpu80211 — a TPU-native 802.11 OFDM channel-estimation framework.
+"""tpu80211 — a batched 802.11 OFDM channel-estimation framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``usmandroid/80211ParallelEstimation`` (five channel estimators, an
 equalizer, a full RX chain, and the distributed-execution story), built
-TPU-first:
+for accelerators:
 
 * estimators are pure functions ``(tx, rx, ...) -> H``, ``vmap``-able over
   OFDM blocks and frames;
 * interpolation (linear / cubic / sinc / spline) is a single static
   ``(4, 53)`` matrix applied as one matmul — the reference's per-subcarrier
   loops and its 5-group/4-rank MPI reduction tree (main_mpi.c:361-623)
-  collapse into one MXU contraction;
+  collapse into one matmul;
 * the MMSE estimator exploits the rank-1 structure of
   ``Rhh = ifft(H_LT) ifft(H_LT)'`` (WiFi_channel_estimation_PS_MMSE.m:26)
   via Sherman-Morrison, with dense batched-solve paths kept for parity and

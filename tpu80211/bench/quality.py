@@ -11,9 +11,9 @@ CFR (datasets/synthetic.py), runs all six estimators, and reports
     estimator used as the PS side of the blended equalizer,
     WiFi_Equalization.m:6-7).
 
-Runs on CPU with complex dtypes (the golden path, pipeline/rx.py's ops);
-the TPU split-complex production path is quality-gated against this same
-math by tests/test_fused_chain.py and tests/test_chain_parity.py.
+Runs with complex dtypes (the golden path, pipeline/rx.py's ops); the
+split-complex production path is quality-gated against this same math by
+tests/test_fused_chain.py and tests/test_chain_parity.py.
 """
 
 from __future__ import annotations
@@ -89,22 +89,20 @@ def _lts_repeat_time(spec: jnp.ndarray) -> jnp.ndarray:
     return jnp.fft.ifft(spec64, axis=-1)
 
 
-def quality_point_fused(snr_db: float, batch: int = 256, seed: int = 0,
-                        dtype=None) -> dict:
-    """Same metrics through the FUSED whole-chain Pallas kernel at a given
-    storage dtype — the configuration whose number is in BENCH_r*.json
-    (round 1 recorded only point tolerances for it, VERDICT.md missing#6).
+def quality_point_storage(snr_db: float, batch: int = 256, seed: int = 0,
+                          dtype=None) -> dict:
+    """Same metrics through the split-complex production chain
+    (pipeline/sc.rx_chain) at a given storage dtype — the configuration
+    bench.py times.
 
     ``dtype``: jnp.bfloat16 (the shipped bench default) or jnp.float32.
     The rx preamble is synthesized with *independent* noise per LTS
     repeat so the in-chain σ² estimate (WiFi_RX.m:31) is realistic.
-    Post-eq metrics use the kernel's PS-Linear blended equalizer
+    Post-eq metrics use the chain's PS-Linear blended equalizer
     (WiFi_RX.m:60); NMSE is reported for every estimator incl. Wiener.
     """
-    import jax.numpy as jnp_  # noqa: F401  (kept local style)
-
     from tpu80211.cplx import Cplx
-    from tpu80211.kernels.fused_chain import fused_rx_chain
+    from tpu80211.pipeline import sc
 
     if dtype is None:
         dtype = jnp.bfloat16
@@ -132,21 +130,21 @@ def quality_point_fused(snr_db: float, batch: int = 256, seed: int = 0,
     def c(x):
         return Cplx.from_complex(x, dtype)
 
-    out = fused_rx_chain(c(pkt_tx), c(pkt_rx), c(tx_lp), c(rx_lp))
+    out = sc.rx_chain(c(pkt_tx), c(pkt_rx), c(tx_lp), c(rx_lp))
 
     row = {
         "snr_db": float(snr_db), "batch": int(batch),
-        "path": "fused_pallas", "dtype": str(np.dtype(dtype).name),
+        "path": "split_complex", "dtype": str(np.dtype(dtype).name),
         "estimators": {},
     }
     for name in ("h_lt", "h_linear", "h_cubic", "h_sinc", "h_spline",
                  "h_wiener", "h_mmse"):
-        h = jnp.asarray(out[name].to_complex())
+        h = jnp.asarray(getattr(out, name).to_complex())
         key = {"h_lt": "lt_ls"}.get(name, "ps_" + name[2:])
         row["estimators"][key] = {
             "nmse_db": round(metrics.cfr_nmse_db(h, fb.h_true), 2),
         }
-    eq = jnp.asarray(out["eq"].to_complex())
+    eq = jnp.asarray(out.eq.to_complex())
     row["eq_linear_blend"] = {
         "evm_rms": round(metrics.evm_rms(eq, fb.tx_symb), 4),
         "ber": round(metrics.qpsk_ber(eq, fb.tx_symb), 5),
@@ -154,20 +152,21 @@ def quality_point_fused(snr_db: float, batch: int = 256, seed: int = 0,
     return row
 
 
-def quality_sweep_fused(
+def quality_sweep_storage(
     snrs: Sequence[float] = DEFAULT_SNRS, batch: int = 256, seed: int = 0,
     dtype=None,
 ) -> list[dict]:
-    return [quality_point_fused(s, batch=batch, seed=seed + i, dtype=dtype)
+    return [quality_point_storage(s, batch=batch, seed=seed + i, dtype=dtype)
             for i, s in enumerate(snrs)]
 
 
 def plot_quality(rows: list[dict], out_path: str,
-                 fused_rows: list[dict] | None = None) -> str:
+                 storage_rows: list[dict] | None = None) -> str:
     """NMSE-vs-SNR curves per estimator → PNG (the quantitative successor
     of the reference's Real_Part/Imag_Part.png accuracy record).
-    ``fused_rows`` (quality_sweep_fused) overlays the fused-kernel storage-
-    dtype series as dashed NMSE curves — the f32-vs-bf16 delta record."""
+    ``storage_rows`` (quality_sweep_storage) overlays the production
+    chain's storage-dtype series as dashed NMSE curves — the f32-vs-bf16
+    delta record."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -184,21 +183,21 @@ def plot_quality(rows: list[dict], out_path: str,
             [max(r["estimators"][name]["ber"], 1e-6) for r in rows],
             marker="o", label=name,
         )
-    if fused_rows:
-        fsnrs = [r["snr_db"] for r in fused_rows]
-        dt = fused_rows[0]["dtype"]
-        for name in fused_rows[0]["estimators"]:
+    if storage_rows:
+        fsnrs = [r["snr_db"] for r in storage_rows]
+        dt = storage_rows[0]["dtype"]
+        for name in storage_rows[0]["estimators"]:
             ax1.plot(
                 fsnrs,
-                [r["estimators"][name]["nmse_db"] for r in fused_rows],
+                [r["estimators"][name]["nmse_db"] for r in storage_rows],
                 linestyle="--", marker="x", alpha=0.7,
-                label=f"{name} [fused {dt}]",
+                label=f"{name} [{dt}]",
             )
         ax2.semilogy(
             fsnrs,
-            [max(r["eq_linear_blend"]["ber"], 1e-6) for r in fused_rows],
+            [max(r["eq_linear_blend"]["ber"], 1e-6) for r in storage_rows],
             linestyle="--", marker="x", color="k",
-            label=f"eq blend [fused {dt}]",
+            label=f"eq blend [{dt}]",
         )
     ax1.legend(fontsize=6)
     ax1.set_xlabel("SNR (dB)")

@@ -4,7 +4,7 @@ frame-group sweep (main_mpi.c:1032-1080, BASELINE.md).
 Sweeps mesh shapes (dp × blk) over the available devices and reports
 frames/s plus linear-scaling efficiency for the shard_map RX step.  On a
 CPU host with XLA_FLAGS=--xla_force_host_platform_device_count=N this
-exercises the same code that runs on an N-chip slice — the fake-backend
+exercises the same code that runs on N devices — the fake-backend
 capability the reference lacks (its sweep needed a 20-slot LSF
 allocation).
 """

@@ -52,12 +52,13 @@ class Config:
 
     # batch of concurrent frames processed per step
     batch: int = 1024
-    # complex compute dtype: "complex64" on TPU, "complex128" for CPU parity
+    # complex compute dtype: "complex64" on the device, "complex128" for
+    # CPU parity
     dtype: str = "complex64"
 
     # MMSE solve strategy: "sm" (Sherman-Morrison rank-1, speed of light),
-    # "dense" (batched 53x53 solve — the reference's computational shape),
-    # "dense_pallas" (Pallas-kernel batched solve)
+    # "dense" (batched 53x53 Cholesky solve — the reference's
+    # computational shape)
     mmse_solver: str = "sm"
 
     # mesh: number of data-parallel shards over frames, and over OFDM blocks

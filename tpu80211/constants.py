@@ -35,10 +35,6 @@ N_AVG_BLOCKS = 4
 # -- measured noise power of the shipped capture (inputs.h:18) ---------------
 OW2 = 9.6172e-08
 
-# -- TPU-friendly padded sizes ------------------------------------------------
-# 53 is awkward for the 8x128 VPU / 128x128 MXU; all padded kernels use 64.
-N_SC_PAD = 64
-
 PILOT_MASK = np.zeros((N_SC,), dtype=bool)
 PILOT_MASK[list(PILOT_IDX)] = True
 

@@ -81,8 +81,8 @@ def generate(
 
     Returns a FrameBatch of numpy complex64 arrays (mirroring
     synthetic.generate), or ``(FrameBatch, TimeBatch)`` with
-    ``time_domain=True`` — the TimeBatch planes feed the fused Pallas
-    chain kernel without any further host-side math.
+    ``time_domain=True`` — the TimeBatch planes feed the time-domain
+    chain without any further host-side math.
     """
     b = int(batch)
     lts = np.ascontiguousarray(_lts_spectrum().astype(np.float32))

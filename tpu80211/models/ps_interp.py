@@ -7,10 +7,10 @@ subcarriers with scalar loops (main.c:77-146,
 WiFi_channel_estimation_PS_{Linear,Cubic,Sinc,Third}.m), then averages the
 estimates of the first 4 blocks (..._PS_Linear.m:23).
 
-TPU design: the interpolation is a static (4, 53) matrix (ops/interp.py),
-so the whole estimator over a batch of frames is
+Design: the interpolation is a static (4, 53) matrix (ops/interp.py), so
+the whole estimator over a batch of frames is
 
-    H = (rx[..., pilots] / tx[..., pilots]) @ W      # one einsum on the MXU
+    H = (rx[..., pilots] / tx[..., pilots]) @ W      # one einsum
 
 which also subsumes the reference's MPI 5-group×4-rank reduction strategy
 (main_mpi.c:361-623): the per-group 4-term MPI_Reduce is the matmul's inner

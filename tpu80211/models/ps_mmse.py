@@ -21,8 +21,9 @@ so the reference's 53×53 cofactor-expansion inverse (utils.c:141-170,
 2×53²×52³/3 ≈ 2.6e8 flops — the entire target of its MPI/OpenMP effort)
 reduces *exactly* to a handful of length-53 dot products per block.  That
 is the "sm" solver — the speed-of-light path.  The "dense" solver builds
-Ryy explicitly and uses a batched solve, preserving the reference's
-computational shape for benchmarking (BASELINE.json configs[3]).
+Ryy explicitly and uses a batched Cholesky solve, preserving the
+reference's computational shape for benchmarking (BASELINE.json
+configs[3]).
 
 C-parity mode reproduces main.c:148-212 with its quirks (SURVEY.md §2.5):
 the real 'hermitian' (utils.c:6), the addition bug making Ryy = 2σ²I
@@ -38,7 +39,8 @@ import numpy as np
 
 from tpu80211 import constants as C
 from tpu80211.config import EstimatorMode
-from tpu80211.ops.linalg import dft_matrix, hermitian_quirk, idft_apply
+from tpu80211.ops.linalg import (dft_matrix, hermitian_quirk, hpd_solve,
+                                 idft_apply)
 
 _X4_PILOT_MASK = np.zeros((C.N_SC,))
 _X4_PILOT_MASK[list(C.PILOT_IDX)] = 1.0
@@ -86,10 +88,6 @@ def _mmse_block_dense(v, tx, rx, ow2, solve_fn, matlab_conj: bool):
     return v * s[..., None]
 
 
-def _solve_xla(a, b):
-    return jnp.linalg.solve(a, b)
-
-
 def ps_mmse(
     tx_blocks: jnp.ndarray,  # (..., n_blocks, 53)
     rx_blocks: jnp.ndarray,  # (..., n_blocks, 53)
@@ -119,11 +117,7 @@ def ps_mmse(
     if solver == "sm":
         h = _mmse_block_sm(vb, tx, rx, ow2, mlc)
     elif solver == "dense":
-        h = _mmse_block_dense(vb, tx, rx, ow2, _solve_xla, mlc)
-    elif solver == "dense_pallas":
-        from tpu80211.kernels.mmse_solve import solve_batched_pallas
-
-        h = _mmse_block_dense(vb, tx, rx, ow2, solve_batched_pallas, mlc)
+        h = _mmse_block_dense(vb, tx, rx, ow2, hpd_solve, mlc)
     else:
         raise ValueError(f"unknown mmse solver: {solver!r}")
     return jnp.mean(h, axis=-2)

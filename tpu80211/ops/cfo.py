@@ -24,8 +24,8 @@ standard 802.11 synchronization steps:
   preamble→packet gap) is read off the 4 known pilots and removed per
   block.
 
-All split-complex (Cplx) — runs on the TPU production path.  Everything
-is elementwise/small-reduction VPU work.
+All split-complex (Cplx) — runs on the production path.  Everything is
+elementwise/small-reduction work.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ differences (WiFi_channel_estimation_PS_Cubic.m, main.c:103-122), sinc
 (WiFi_channel_estimation_PS_Third.m) — computes, per subcarrier k, a value
 that is *linear in the four pilot ratios*.  The reference evaluates this
 with per-subcarrier scalar loops (and, in MPI, with a 5-group × 4-rank
-reduction tree, main_mpi.c:361-623).  On TPU the whole family is one
-precomputed matrix ``W`` with ``H = H_pilots @ W`` — a single MXU
+reduction tree, main_mpi.c:361-623).  Here the whole family is one
+precomputed matrix ``W`` with ``H = H_pilots @ W`` — a single
 contraction batched over blocks and frames; the reference's P4 group
 reduction is subsumed by the matmul's inner dimension.
 

@@ -1,11 +1,11 @@
 """Complex linear-algebra helpers shared by the estimators.
 
-TPU-native replacement for the reference's dense kernel library
-(``utils.c``): the 53×53 DFT matrix (main.c:22-26,
-WiFi_channel_estimation_PS_MMSE.m:16-22) is a trace-time constant; the
-cofactor-expansion inverse (utils.c:141-170) never exists — where the math
-needs ``inv(F)`` we use the unitary-DFT identity ``F⁻¹ = Fᴴ/N``, and where
-it needs ``Ryy⁻¹·y`` we use batched solves or the rank-1 Sherman-Morrison
+Replacement for the reference's dense kernel library (``utils.c``): the
+53×53 DFT matrix (main.c:22-26, WiFi_channel_estimation_PS_MMSE.m:16-22)
+is a trace-time constant; the cofactor-expansion inverse
+(utils.c:141-170) never exists — where the math needs ``inv(F)`` we use
+the unitary-DFT identity ``F⁻¹ = Fᴴ/N``, and where it needs ``Ryy⁻¹·y``
+we use the batched Cholesky solve below or the rank-1 Sherman-Morrison
 closed form (see models/ps_mmse.py).
 """
 
@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tpu80211 import constants as C
+from tpu80211.cplx import Cplx
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,3 +49,30 @@ def addition_quirk(m1: jnp.ndarray, m2: jnp.ndarray) -> jnp.ndarray:
     ignores M2 (SURVEY.md §2.5.2). Kept for C-parity mode."""
     del m2
     return m1 + m1
+
+
+def hpd_solve(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """x = a⁻¹·b for a batch of Hermitian positive-definite systems,
+    (..., n, n) and (..., n, k), by Cholesky a = L·Lᴴ and two triangular
+    solves — the factorization BASELINE.json names for the regularized
+    53×53 MMSE system (main.c:201)."""
+    lo = jnp.linalg.cholesky(a)
+    y = jax.lax.linalg.triangular_solve(lo, b, left_side=True, lower=True)
+    return jax.lax.linalg.triangular_solve(lo, y, left_side=True, lower=True,
+                                           transpose_a=True, conjugate_a=True)
+
+
+def rank1_solve(u: Cplx, rx: Cplx, ow2) -> Cplx:
+    """z = (σ²I + u·uᴴ)⁻¹·rx per system — the reference's explicit
+    regularized solve (BASELINE.json configs[3]), built and solved densely.
+
+    u, rx: Cplx (..., n); ow2: real, broadcastable to (...,).  Computes
+    in complex64 and returns Cplx f32 (..., n)."""
+    uc = jax.lax.complex(u.re.astype(jnp.float32), u.im.astype(jnp.float32))
+    rc = jax.lax.complex(rx.re.astype(jnp.float32), rx.im.astype(jnp.float32))
+    n = uc.shape[-1]
+    s2 = jnp.asarray(ow2, jnp.float32)[..., None, None]
+    a = uc[..., :, None] * jnp.conj(uc[..., None, :]) + s2 * jnp.eye(
+        n, dtype=jnp.float32)
+    z = hpd_solve(a, rc[..., None])[..., 0]
+    return Cplx(jnp.real(z), jnp.imag(z))

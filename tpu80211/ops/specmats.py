@@ -1,11 +1,12 @@
-"""Precomputed spectral matrices for the MXU.
+"""Precomputed spectral matrices.
 
-On TPU, a 64-point FFT of a batch of OFDM blocks is *slower* expressed as a
-generic FFT than as one (batch·15, 64) @ (64, 53) matmul — especially since
-the reference chain immediately fftshifts (circshift by 26) and truncates
-to 53 used subcarriers (WiFi_blocks_extraction.m:7-9, WiFi_RX.m:22-29).
-The shift and truncation fold into the DFT matrix at build time, so "CP
-strip → FFT → shift → slice" is a single MXU contraction.
+The block extraction is one (batch·15, 64) @ (64, 53) matmul rather than
+a generic FFT: the reference chain immediately fftshifts (circshift by
+26) and truncates to 53 used subcarriers (WiFi_blocks_extraction.m:7-9,
+WiFi_RX.m:22-29), and the shift and truncation fold into the DFT matrix
+at build time, so "CP strip → FFT → shift → slice" is a single
+contraction that also takes bf16 storage operands directly.  Whether a
+batched FFT is faster on the GPU is an open measurement (PERF.md).
 
 All matrices are float64 NumPy constants baked at trace time.
 """

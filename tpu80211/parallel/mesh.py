@@ -7,14 +7,14 @@ main_mpi.c:21-27,62-93), cyclic subcarrier splits with manual ceil/floor
 load balancing (P3, main_mpi.c:172-174), 5-group×4-rank reduction trees
 (P4, main_mpi.c:366-385), a 13-rank hand-scheduled dataflow graph (P6,
 main_mpi.c:744-771), and Re/Im-plane Send/Recv marshalling (P8,
-utils.c:780-795).  On TPU all of that is two named mesh axes:
+utils.c:780-795).  Here all of that is two named mesh axes:
 
   * ``dp``  — frames sharded across chips (the reference's frame groups);
   * ``blk`` — optional OFDM-block-axis sharding *within* a frame (the
     reference's intra-frame 15-rank split).  Estimator math is independent
     per block except the final average over the first ``avg_blocks``
     blocks, which becomes one ``lax.psum`` over ``blk`` — the only
-    cross-device communication in the entire pipeline, riding ICI.
+    cross-device communication in the entire pipeline.
 
 `MPI_Bcast` of constants → replicated trace-time constants; `MPI_Reduce` →
 `psum`; worker→root `Send/Recv` gathers → outputs stay device-resident
@@ -69,7 +69,7 @@ def rx_chain_dp(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS):
     """jit the full RX chain with batch-sharded inputs/outputs.
 
     Frames are embarrassingly parallel, so GSPMD compiles this to zero
-    collectives — each chip runs its shard of the batch.  Returns the
+    collectives — each device runs its shard of the batch.  Returns the
     compiled callable (tx_pkt, rx_pkt, tx_lp, rx_lp as Cplx) → RxOutputs.
     """
     spec = frame_sharding(mesh)
@@ -85,22 +85,21 @@ def rx_chain_dp(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS):
 
 
 def rx_step_shardmap(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS,
-                     solver: str = "sm", method: str = "gauss"):
+                     solver: str = "sm"):
     """Full RX step as a `shard_map` with explicit collectives.
 
     ``solver``: "sm" (rank-1 Sherman-Morrison closed form, the production
-    default) or "dense" (the fused Pallas build+solve kernel — the
+    default) or "dense" (the dense build + Cholesky solve — the
     reference's distributed computational shape, inverse_mpi at
     utils.c:273-353 / main_mpi.c:636-742, composed with the mesh: frames
-    sharded over ``dp``, dense per-block 53×53 solves chip-local, the
-    4-block average as the ``blk`` psum).  ``method`` selects the dense
-    factorization ("gauss" | "chol").
+    sharded over ``dp``, dense per-block 53×53 solves device-local, the
+    4-block average as the ``blk`` psum).
 
     Layout: frames sharded over ``dp``; the 15-block axis of each frame
     block-sharded over ``blk`` (padded 15 → 16 = blk·⌈15/blk⌉ blocks, the
     pad weighted zero).  The pilot/MMSE per-block estimates are computed on
     local blocks only and combined with one weighted `lax.psum` over
-    ``blk`` — the TPU equivalent of the reference's intra-frame group
+    ``blk`` — the equivalent of the reference's intra-frame group
     reduction (main_mpi.c:467-481).  A second `psum` over ``dp``+``blk``
     produces the global mean-square CFR metric (the MPI_Reduce at the end
     of every reference run).
@@ -157,7 +156,7 @@ def rx_step_shardmap(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS,
 
         # MMSE: per-local-block estimates, then the same psum-average
         h_mmse = psum_avg(
-            _mmse_per_block(tx_blocks, rx_blocks, ow2, h_lt, solver, method)
+            _mmse_per_block(tx_blocks, rx_blocks, ow2, h_lt, solver)
         )
 
         # equalize local blocks with their *global* block index in the
@@ -167,7 +166,7 @@ def rx_step_shardmap(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS,
 
         # global scalar metric: mean |H_mmse|² over all frames.  h_mmse is
         # already invariant over blk (psum_avg reduced that axis), so only
-        # a dp psum is needed — the TPU version of the reference's final
+        # a dp psum is needed — the counterpart of the reference's final
         # MPI_Reduce-to-rank-0.
         local_pow = jnp.sum(h_mmse.abs2())
         n_frames = jnp.asarray(tx_pre.shape[0], jnp.float32)
@@ -206,24 +205,23 @@ def rx_step_shardmap(mesh: Mesh, avg_blocks: int = C.N_AVG_BLOCKS,
 
 
 def _mmse_per_block(tx_blocks: Cplx, rx_blocks: Cplx, ow2, h_lt: Cplx,
-                    solver: str = "sm", method: str = "gauss") -> Cplx:
+                    solver: str = "sm") -> Cplx:
     """Per-block (un-averaged) MMSE estimates (…, nb, 53).
 
     v = F·ifft(H_LT) = H_LT exactly (see sc.ps_mmse_sm) — no transforms.
     solver="sm": the closed form s = uᴴrx/(σ²+‖u‖²) (MATH-mode collapse,
-    see config.EstimatorMode / sc.ps_mmse_sm).  solver="dense": the fused
-    Pallas kernel solves the explicit Ryy z = rx system per block and
+    see config.EstimatorMode / sc.ps_mmse_sm).  solver="dense": the dense
+    Cholesky solve of the explicit Ryy z = rx system per block and
     s = uᴴz — the reference's distributed shape (utils.c:273-353)."""
     vb = h_lt.astype(jnp.float32)[..., None, :]
     u = tx_blocks.astype(jnp.float32) * vb
     if solver == "dense":
-        from tpu80211.kernels.mmse_solve import fused_rank1_solve
+        from tpu80211.ops.linalg import rank1_solve
 
         ow2_b = jnp.broadcast_to(
             jnp.asarray(ow2, jnp.float32)[..., None], u.shape[:-1]
         )
-        z = fused_rank1_solve(u, rx_blocks.astype(jnp.float32), ow2_b,
-                              method=method)
+        z = rank1_solve(u, rx_blocks.astype(jnp.float32), ow2_b)
         s = (u.conj() * z).sum(axis=-1)
     else:
         denom = jnp.asarray(ow2)[..., None] + u.abs2().sum(axis=-1)

@@ -4,13 +4,13 @@ Replaces the reference's cluster-launch layer — LSF `#BSUB` allocation +
 `mpirun -np N -TCP -lsf` over 10 GbE (main_mpi.bash:1-30, C10) — with the
 JAX distributed runtime:
 
-  * each host process calls `init_distributed()` (coordinator address via
-    args or TPU-pod auto-detection), the analogue of `MPI_Init` +
+  * each host process calls `init_distributed()` with the coordinator
+    address, process count and rank, the analogue of `MPI_Init` +
     communicator setup (main_mpi.c:16-27);
   * `hierarchical_mesh()` builds a ('host', 'dp', 'blk') mesh whose outer
-    axis spans DCN (inter-host) and inner axes span ICI (intra-slice) —
-    the reference's hybrid MPI×OpenMP topology (P7, utils.c:355-437,
-    main_mpi.bash:9-11) expressed as named axes;
+    axis spans hosts (the network) and inner axes span a host's devices
+    (NVLink) — the reference's hybrid MPI×OpenMP topology (P7,
+    utils.c:355-437, main_mpi.bash:9-11) expressed as named axes;
   * frames shard over ('host', 'dp') jointly, so scaling out hosts
     multiplies frame throughput with zero extra collective traffic (the
     only cross-host op is the final metrics psum).
@@ -36,9 +36,9 @@ def init_distributed(
 ) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    On TPU pods all arguments auto-detect from the metadata server; on CPU
-    or GPU clusters pass them explicitly (the reference instead derived its
-    world from `mpirun -np` + LSF host lists, main_mpi.bash:13-29).
+    Pass all three arguments for a multi-host run (the reference instead
+    derived its world from `mpirun -np` + LSF host lists,
+    main_mpi.bash:13-29); without them this is a single-process no-op.
 
     MUST run before any other JAX call: touching any JAX API (even
     `jax.process_count()`) initializes the XLA backend, after which
@@ -47,7 +47,7 @@ def init_distributed(
     multi-host arguments they re-raise — a silently-single-host "cluster"
     is the failure mode this guards against.
     """
-    if getattr(jax.distributed, "is_initialized", lambda: False)():
+    if jax.distributed.is_initialized():
         return
     kwargs = {}
     if coordinator_address is not None:
@@ -77,7 +77,8 @@ def init_distributed(
 
 
 def hierarchical_mesh(blk: int = 1) -> Mesh:
-    """('host', 'dp', 'blk') mesh: hosts over DCN, chips over ICI.
+    """('host', 'dp', 'blk') mesh: hosts over the network, each host's
+    devices over NVLink.
 
     With H hosts × L local devices: host axis length H, dp axis length
     L // blk.  Degenerates to (1, n, blk) on a single host.

@@ -2,7 +2,7 @@
 
 The reference's parity target is its compiled C sequential binary
 (SURVEY.md §2.5); this module builds (once, via make) and wraps our native
-re-implementation of that binary's behavior so tests can gate the JAX/TPU
+re-implementation of that binary's behavior so tests can gate the JAX
 paths against actual x87 long-double arithmetic, including the cofactor/
 adjugate inverse the reference spends all its parallelization effort on
 (utils.c:141-170).

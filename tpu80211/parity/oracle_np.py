@@ -1,7 +1,7 @@
 """Extended-precision (80-bit long-double) NumPy oracle.
 
 An *independent* scalar-loop re-implementation of the estimator math, used
-as the parity reference for the JAX/TPU code paths:
+as the parity reference for the JAX code paths:
 
 * MATLAB mode follows WiFi_channel_estimation_*.m / WiFi_RX.m semantics;
 * C_PARITY mode follows the C sequential code main.c:66-212 including its

@@ -2,8 +2,9 @@
 
 Composes the complex-dtype ops (tpu80211/ops) and estimators
 (tpu80211/models) into the WiFi_RX.m pipeline (WiFi_RX.m:17-60).  Runs at
-complex64/complex128 on CPU (tests, parity vs the 80-bit oracle); the TPU
-production path is the split-complex twin in tpu80211/pipeline/sc.py.
+complex64/complex128 (tests, parity vs the 80-bit oracle, the on-card
+reference of chip_smoke.py); the production path is the split-complex
+twin in tpu80211/pipeline/sc.py.
 """
 
 from __future__ import annotations
